@@ -1,4 +1,4 @@
-"""kaldi_tpu — a TPU-native hybrid speech recognition & speaker recognition framework.
+"""kaldi_tpu — a hybrid speech recognition & speaker recognition framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of classic Kaldi
 (the david-ryan-snyder fork; see SURVEY.md): feature extraction, GMM-HMM and

@@ -2002,7 +2002,7 @@ def cmd_fst_rmsymbols(args):
 
 def cmd_fst_pack_graph(args):
     """Pack an HCLG text FST into the device arc-table artifact used by
-    the decoders (the TPU-side analogue of just loading HCLG.fst: CSR
+    the decoders (the device-side analogue of just loading HCLG.fst: CSR
     arc tables + tid->pdf mapping; ref: decode path of
     gmmbin/gmm-latgen-faster.cc reading fst::ReadFstKaldi)."""
     from kaldi_tpu.io.model_io import load_gmm_system, save_hclg
@@ -6027,7 +6027,7 @@ _ALIASES: dict = {
     "ivector-extract-online": ["ivector-extract-online2"],
     "online-wav-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
     # the reference's mic-driven decoder; audio arrives from wav.scp
-    # here (no portaudio in a TPU serving image — README scope note)
+    # here (no portaudio in a GPU serving image — README scope note)
     "online-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
     # nnet2 / nnet3 am-wrappers
     "nnet-train-parallel": ["nnet-train-simple"],
@@ -6052,6 +6052,8 @@ _ALIASES: dict = {
 
 
 def main(argv=None):
+    from kaldi_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     argv = _expand_config_args(argv if argv is not None else sys.argv[1:])
     for _hop in range(4):   # aliases may chain (e.g. *-simple -> *-faster)
         if not (argv and argv[0] in _ALIASES):

@@ -392,7 +392,7 @@ def cmd_draw_tree(args):
 # --------------------------------------------------------- device probes
 
 def cmd_cuda_compiled(args):
-    """Exit 0 iff an accelerator backend is compiled in — the TPU
+    """Exit 0 iff an accelerator backend is compiled in — the JAX
     answer to the reference's CUDA probe (ref: bin/cuda-compiled.cc)."""
     import jax
     ok = any(d.platform != "cpu" for d in jax.devices()) or \

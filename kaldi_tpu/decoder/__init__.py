@@ -1,4 +1,4 @@
-"""Batched Viterbi alignment & beam-search decoding as TPU tensor programs
+"""Batched Viterbi alignment & beam-search decoding as tensor programs
 (ref: src/decoder)."""
 
 from kaldi_tpu.decoder.graph_pack import PackedGraph, pack_graph, pack_graphs

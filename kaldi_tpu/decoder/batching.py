@@ -1,7 +1,7 @@
 """Length-bucketed batch decoding for production serving.
 
 (ref role: gmm-latgen-faster-parallel's TaskSequencer feeds utterances of
- wildly different lengths through one thread pool; the TPU equivalent
+ wildly different lengths through one thread pool; the equivalent here
  batches utterances into padded tensors — bucketing by length bounds the
  padding waste AND keeps the set of jit shapes small, so each bucket shape
  compiles once. SURVEY.md §5 long-context row: pad/bucket frames per

@@ -1,6 +1,6 @@
-"""Batched Viterbi beam search over HCLG as a TPU tensor program.
+"""Batched Viterbi beam search over HCLG as a tensor program.
 
-The TPU-native replacement for FasterDecoder/LatticeFasterDecoder's token
+The tensor-program replacement for FasterDecoder/LatticeFasterDecoder's token
 passing (ref: decoder/lattice-faster-decoder.cc:660-750 ProcessEmitting,
 ProcessNonemitting, GetCutoff :591): instead of a hash map of Tokens and
 linked ForwardLinks, the frontier is a fixed-capacity (max-active) tensor

@@ -2,7 +2,7 @@
 
 (ref: decoder/biglm-faster-decoder.h / lattice-biglm-faster-decoder.h —
  the reference composes HCLG(small G) with ΔG = G_small⁻¹ ∘ G_big as a
- DeterministicOnDemandFst during search. The TPU-native equivalent keeps
+ DeterministicOnDemandFst during search. The equivalent here keeps
  the search program fixed-shape: decode against the small-LM HCLG to
  lattices, then exactly rescore (subtract the small G along lattice paths,
  add the big LM via the on-demand ConstArpaLm) — the steps/lmrescore*.sh

@@ -5,7 +5,7 @@
  DecodableMatrixScaled; decoder/decodable-mapped.h DecodableMapped;
  decoder/decodable-sum.h DecodableSum / DecodableSumScaled.)
 
-TPU-first shape: a "decodable" is just a loglikes tensor [..., T, N]
+Accelerator-first shape: a "decodable" is just a loglikes tensor [..., T, N]
 (N = pdfs or tids) plus the pure functions below; the decoders take the
 tensor directly, so each reference adapter class collapses to one lazy
 array transformation XLA fuses into the decode program — no per-frame

@@ -4,7 +4,7 @@ The decode-time counterpart of the reference's `Fst<StdArc>` (which the
 LatticeFasterDecoder walks pointer-by-pointer, decoder/lattice-faster-
 decoder.cc:660): here the graph becomes five flat arrays — arc_start[s],
 ilabel/olabel/cost/nextstate per arc, ilabel-sorted within each state — so
-the TPU decoder can expand a whole frontier with one gather.
+the device decoder can expand a whole frontier with one gather.
 """
 
 from __future__ import annotations

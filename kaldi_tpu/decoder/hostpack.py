@@ -1,14 +1,12 @@
 """Single-round-trip device->host result transfer for the decoders.
 
 Fetching the decode outputs (olabels, ilabels, init olabels, costs) as
-four separate np.asarray calls costs four device->host round trips; on a
-remote/tunneled TPU each round trip is tens of milliseconds of latency,
-which dominated the whole pipeline (the decode program itself runs in
-<1 ms). Packing everything into ONE int32 buffer on device makes the
-host sync a single transfer.
+four separate np.asarray calls costs four device->host round trips.
+Packing everything into ONE int32 buffer on device makes the host sync a
+single transfer.
 
 (ref: the reference decoder has no analogue — it is host-resident; this
-is the TPU-native replacement for its result marshalling.)
+is the device-side replacement for its result marshalling.)
 """
 
 from __future__ import annotations

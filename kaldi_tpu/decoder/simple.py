@@ -1,7 +1,7 @@
 """SimpleDecoder: slow, obviously-correct host-side Viterbi over HCLG.
 
 (ref: decoder/simple-decoder.h:37 — kept solely as the correctness oracle
-for the batched TPU decoder, mirroring the reference's test strategy of
+for the batched device decoder, mirroring the reference's test strategy of
 keeping a simple baseline decoder, SURVEY.md §4.3.)
 """
 

@@ -1,6 +1,7 @@
 """Static verification of packed decode graphs (the batched decoder's
 index programs are gather-heavy; a malformed graph would read garbage
-silently on TPU, where there is no bounds checking).
+silently on the accelerator, where gathers clamp instead of
+bounds-checking).
 
 (ref: SURVEY.md §5 'race detection/sanitizers' — the reference's
  nnet3 ComputationChecker (nnet3/nnet-analyze.h:370-394) validates its

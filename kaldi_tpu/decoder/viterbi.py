@@ -1,6 +1,6 @@
 """Batched Viterbi alignment over per-utterance training graphs.
 
-The TPU-native replacement for gmm-align-compiled's FasterDecoder loop
+The tensor-program replacement for gmm-align-compiled's FasterDecoder loop
 (ref: decoder/faster-decoder.h:61, gmmbin/gmm-align-compiled.cc): alignment
 graphs are small, so instead of token passing with hashing we run DENSE
 masked dynamic programming over the padded [B, S] state space:

@@ -2,7 +2,7 @@
 
 (ref: src/fstext + OpenFst usage in utils/mkgraph.sh.) Graph construction
 runs once per system on the host; the decode-time product is an immutable
-CSR-packed arc table consumed by the batched TPU beam-search decoder
+CSR-packed arc table consumed by the batched beam-search decoder
 (kaldi_tpu.decoder). Costs are negative log probabilities throughout.
 """
 

@@ -1,5 +1,5 @@
 """GMM acoustic models (ref: src/gmm): diagonal/full GMMs, AM container,
-MLE/MAP estimation — scoring is batched GEMMs on the MXU."""
+MLE/MAP estimation — scoring is batched GEMMs."""
 
 from kaldi_tpu.gmm.diag_gmm import DiagGmm
 from kaldi_tpu.gmm.full_gmm import FullGmm

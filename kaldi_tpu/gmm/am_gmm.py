@@ -2,12 +2,12 @@
 
 (ref: gmm/am-diag-gmm.h:36 AmDiagGmm; gmm/decodable-am-diag-gmm.h:45.)
 
-TPU-first design: instead of per-pdf scoring on demand (the reference caches
+Accelerator-first design: instead of per-pdf scoring on demand (the reference caches
 per-frame likelihoods per transition-id), we pack every gaussian of every pdf
 into one [2D+1, total_gauss] matrix. Scoring a [T, D] block of frames against
 ALL pdfs is then
 
-    aug[T, 2D+1] @ packed[2D+1, G]  -> comp loglikes [T, G]   (one MXU GEMM)
+    aug[T, 2D+1] @ packed[2D+1, G]  -> comp loglikes [T, G]   (one GEMM)
     segment-logsumexp over G by pdf -> [T, num_pdfs]
 
 which is exactly how the batched decoder/aligner wants its inputs. Pdfs may

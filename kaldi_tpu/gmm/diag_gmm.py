@@ -5,7 +5,7 @@ log-likelihood of a whole block of frames is one GEMM.
  LogLikelihoods matrix version gmm/diag-gmm.h:92.)
 
 loglike(x, m) = gconst[m] + <mean*invvar[m], x> - 0.5 <invvar[m], x^2>
-             => stack [x, x^2] [T, 2D] @ [2D, M] + gconst — MXU-shaped.
+             => stack [x, x^2] [T, 2D] @ [2D, M] + gconst — one GEMM.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 (ref: gmm/mle-diag-gmm.h:136-225 AccumDiagGmm / MleDiagGmmUpdate /
  MapDiagGmmUpdate; gmm/mle-am-diag-gmm.h AccumAmDiagGmm.)
 
-TPU-first accumulation: given frames [T, D] and per-frame (pdf, weight)
+Accelerator-first accumulation: given frames [T, D] and per-frame (pdf, weight)
 labels, all pdf/component stats are computed with batched GEMMs +
 segment-sums in one jit program, replacing the reference's per-frame
 AccumulateFromPosteriors loop. Data-parallel training psums these stats

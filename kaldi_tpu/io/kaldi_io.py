@@ -5,7 +5,7 @@ Implements the on-disk formats of the reference's Table system
  matrix/kaldi-matrix.cc Write/Read, matrix/compressed-matrix.h:128-146)
 so features/alignments/transcripts can round-trip with reference tools for
 differential testing. The in-memory API is plain Python: iterators of
-(key, value) and dict-like random access — the TPU framework's "Table".
+(key, value) and dict-like random access — this framework's "Table".
 
 Supported holders: float/double matrix ("FM"/"DM"), vector ("FV"/"DV"),
 compressed matrix ("CM"), int32 vectors (alignments), text tokens.

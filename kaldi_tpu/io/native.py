@@ -29,15 +29,17 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) and os.path.exists(_SRC):
+        if (not os.path.exists(_SO)
+                or (os.path.exists(_SRC)
+                    and os.path.getmtime(_SRC) > os.path.getmtime(_SO))):
+            if not os.path.exists(_SRC):
+                return None
             try:
                 subprocess.run(
                     ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
                     check=True, capture_output=True, timeout=120)
             except Exception:
                 return None
-        if not os.path.exists(_SO):
-            return None
         try:
             lib = ctypes.CDLL(_SO)
         except OSError:

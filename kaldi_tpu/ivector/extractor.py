@@ -5,7 +5,7 @@
  EM training; ivectorbin/ivector-extractor-{init,acc-stats,est}.cc and
  ivector-extract.cc.)
 
-TPU-first formulation: the zeroth/first-order stats for a whole utterance
+Accelerator-first formulation: the zeroth/first-order stats for a whole utterance
 batch are two GEMMs (posteriors against frames); the per-utterance posterior
 solve L w = b is a batched Cholesky over [B, K, K]. The reference's prior
 offset convention (ivector coordinate 0 centered at 1) is kept so behavior

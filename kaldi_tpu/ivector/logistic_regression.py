@@ -4,7 +4,7 @@
  L-BFGS on the multiclass log-loss with L2 prior ('normalizer'); supports
  class priors adjustment and mixture components per class via
  --mix-up (single-component here). Training is full-batch gradient steps
- under jit — the dataset is i-vectors, tiny by TPU standards.)
+ under jit — the dataset is i-vectors, tiny by accelerator standards.)
 """
 
 from __future__ import annotations

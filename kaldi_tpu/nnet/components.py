@@ -7,7 +7,7 @@
 
 Each component is (init(key, ...) -> params, apply(params, x) -> y); models
 compose them. Splicing over time offsets is a clamped gather along T — the
-TPU-native expression of SpliceComponent / nnet3 Append(Offset(...)).
+Tensor expression of SpliceComponent / nnet3 Append(Offset(...)).
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ noise.
  independent affines over equal slices), AdditiveNoiseComponent
  (train-time Gaussian noise injection).)
 
-All are pure functions on arrays; the DCT is a matmul (MXU-friendly),
+All are pure functions on arrays; the DCT is a matmul,
 the block affine is one batched matmul over the block dim.
 """
 

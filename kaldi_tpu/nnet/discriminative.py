@@ -102,8 +102,8 @@ def train_nnet_discriminative(
     # lattice rescoring + the one inside value_and_grad): an eager
     # jax.vjp could share one forward across the host lattice pass and
     # the pullback, but it cannot live inside jit (the posterior pass is
-    # host code between fwd and bwd), and on TPU the lost XLA fusion of
-    # an un-jitted fwd+bwd outweighs the saved jitted forward.
+    # host code between fwd and bwd), and the lost XLA fusion of an
+    # un-jitted fwd+bwd is expected to outweigh the saved jitted forward.
     @jax.jit
     def step(params, opt_state, feats, post):
         def loss_fn(p):

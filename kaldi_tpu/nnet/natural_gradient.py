@@ -4,7 +4,7 @@
  nnet3/natural-gradient-online.h:420 OnlineNaturalGradient — Povey, Zhang
  & Khudanpur 2014. The reference maintains a LOW-RANK online Fisher
  estimate per side because full matrices were too slow on 2014 CPUs/GPUs;
- on TPU the MXU makes the full Kronecker factors cheap, so the idiomatic
+ on an accelerator the full Kronecker factors are cheap, so the idiomatic
  realization is: EMA covariance of the gradient's row and column spaces,
  periodic inverse-square-roots (eigh), and — like the reference — a final
  rescale so preconditioning changes the gradient's DIRECTION but not its

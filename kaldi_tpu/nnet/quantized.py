@@ -1,24 +1,16 @@
-"""Int8 weight-quantized affine layers with a fused Pallas TPU kernel.
+"""Int8 weight-quantized affine layers for serving.
 
 (ref role: the reference serves GMM/DNN scores in float on 2015 hardware;
- the TPU-native serving path quantizes affine weights to int8 with
- per-output-channel scales — the memory-bound layers read 4x less HBM and
- the dequant is fused into the matmul epilogue. Kernel follows the
- quantization pattern of the TPU Pallas guide; a pure-XLA fallback keeps
- CPU/tests working (and `interpret=True` exercises the kernel logic
- off-TPU).)
+ here affine weights can be quantized to int8 with per-output-channel
+ scales, so the memory-bound layers read 4x fewer weight bytes; XLA fuses
+ the dequant into the matmul.)
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def quantize_weights(w: np.ndarray):
@@ -31,79 +23,19 @@ def quantize_weights(w: np.ndarray):
     return q, scale.astype(np.float32)
 
 
-def _qaffine_kernel(x_ref, wq_ref, scale_ref, b_ref, out_ref):
-    # x [TM, K] f32 · wqᵀ [K, N] int8 → [TM, N] f32, dequant+bias fused
-    w = wq_ref[:].astype(jnp.float32)
-    acc = jnp.dot(x_ref[:], w, preferred_element_type=jnp.float32)
-    out_ref[:] = acc * scale_ref[:] + b_ref[:]
-
-
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def qaffine_pallas(x, wq_t, scale, bias, interpret: bool = False):
-    """x [M, K] f32; wq_t [K, N] int8 (already transposed); scale/bias [N].
-    -> [M, N] f32. Tiled over (M, N); the int8 weight tile is the only
-    large HBM read — the point of weight-only quantization."""
-    M, K = x.shape
-    N = wq_t.shape[1]
-    TM = min(128, _round_up(M, 8))
-    TN = min(1024, _round_up(N, 128))
-    Mp, Np = _round_up(M, TM), _round_up(N, TN)
-    if Mp != M:
-        x = jnp.pad(x, ((0, Mp - M), (0, 0)))
-    if Np != N:
-        wq_t = jnp.pad(wq_t, ((0, 0), (0, Np - N)))
-        scale = jnp.pad(scale, (0, Np - N))
-        bias = jnp.pad(bias, (0, Np - N))
-    out = pl.pallas_call(
-        _qaffine_kernel,
-        grid=(Mp // TM, Np // TN),
-        in_specs=[
-            pl.BlockSpec((TM, K), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, TN), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TN), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TN), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((TM, TN), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Mp, Np), jnp.float32),
-        interpret=interpret,
-    )(x, wq_t, scale[None, :], bias[None, :])
-    return out[:M, :N]
-
-
-def qaffine(x, wq: np.ndarray | jnp.ndarray, scale, bias,
-            force_xla: bool = False, interpret: bool = False,
-            use_pallas: bool = False):
+def qaffine(x, wq: np.ndarray | jnp.ndarray, scale, bias):
     """Quantized affine y = x Wᵀ·diag(scale) + b.
 
-    x [..., K]; wq [N, K] int8; scale/bias [N].
-
-    Default path: XLA dequant-matmul (int8 weights stored in HBM, 4x less
-    model memory; XLA fuses the dequant into the matmul). The hand-written
-    Pallas kernel (use_pallas=True / interpret=True) is numerically
-    verified against it, but measured SLOWER than XLA's matmul at TDNN
-    shapes on v5e (Mosaic int8->f32 tile loads don't beat cuBLAS-class
-    XLA scheduling here), so it is opt-in — kept as the template for
-    fusing more of the serving epilogue into the tile loop."""
+    x [..., K]; wq [N, K] int8; scale/bias [N]. The int8 weights stay
+    int8 in device memory (4x less model memory); XLA fuses the dequant
+    into the matmul."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = jnp.asarray(x, jnp.float32).reshape(-1, K)
     wq = jnp.asarray(wq)
     scale = jnp.asarray(scale, jnp.float32)
     bias = jnp.asarray(bias, jnp.float32)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if force_xla or not (interpret or (use_pallas and on_tpu)):
-        y = x2 @ (wq.astype(jnp.float32).T * scale[None, :]) + bias
-    else:
-        y = qaffine_pallas(x2, wq.T, scale, bias, interpret=interpret)
+    y = x2 @ (wq.astype(jnp.float32).T * scale[None, :]) + bias
     return y.reshape(*lead, -1)
 
 
@@ -122,19 +54,16 @@ def quantize_tdnn(params):
     return out
 
 
-def tdnn_apply_quantized(model, qparams, feats, pad_context: bool = True,
-                         interpret: bool = False, force_xla: bool = False):
+def tdnn_apply_quantized(model, qparams, feats, pad_context: bool = True):
     """Quantized forward pass of a Tdnn (mirrors Tdnn.apply; ref:
     kaldi_tpu/nnet/tdnn.py) producing log-posteriors."""
-    from kaldi_tpu.nnet.components import (splice, splice_valid, pnorm,
+    from kaldi_tpu.nnet.components import (splice_valid, pnorm,
                                            normalize, ACTIVATIONS)
     cfg = model.config
-    x = jnp.asarray(feats)
-    sp = splice if pad_context else splice_valid
+    x = model.edge_pad(feats) if pad_context else jnp.asarray(feats)
     for ctx, layer in zip(cfg.splice_indexes, qparams["layers"]):
-        x = sp(x, ctx)
-        x = qaffine(x, layer["wq"], layer["scale"], layer["b"],
-                    interpret=interpret, force_xla=force_xla)
+        x = splice_valid(x, ctx)
+        x = qaffine(x, layer["wq"], layer["scale"], layer["b"])
         if cfg.nonlinearity == "pnorm":
             x = pnorm(x, cfg.pnorm_output_dim)
             x = normalize(x)
@@ -142,6 +71,5 @@ def tdnn_apply_quantized(model, qparams, feats, pad_context: bool = True,
             x = ACTIVATIONS["relu"](x)
             x = normalize(x)
     f = qparams["final"]
-    logits = qaffine(x, f["wq"], f["scale"], f["b"],
-                     interpret=interpret, force_xla=force_xla)
+    logits = qaffine(x, f["wq"], f["scale"], f["b"])
     return jax.nn.log_softmax(logits, axis=-1)

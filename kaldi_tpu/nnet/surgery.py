@@ -12,7 +12,7 @@ fix dead/saturated units, replace the output layer, per-layer lr scales.
    a trained stack onto a new output layer / tree),
  nnet2bin/nnet-modify-learning-rates.cc (per-layer learning rates).
 
-TPU-first shape: all surgery is pure functions params -> params on the
+Accelerator-first shape: all surgery is pure functions params -> params on the
 Tdnn pytree (kaldi_tpu/nnet/tdnn.py); "learning rates" become an optax
 multi_transform label tree instead of mutable component state.)
 """

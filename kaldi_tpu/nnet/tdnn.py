@@ -7,7 +7,7 @@
  steps/nnet3/make_tdnn_configs.py. This is the reference's strongest
  production AM family — LibriSpeech RESULTS:314.)
 
-TPU-first: the whole utterance batch [B, T, D] flows through; each layer's
+The whole utterance batch [B, T, D] flows through; each layer's
 splice is a strided gather; affines are big GEMMs in bf16-friendly shapes.
 Model parallelism: the final affine (hidden x num_pdfs, the largest matrix)
 shards over the 'model' mesh axis; everything else is replicated and batch
@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from kaldi_tpu.nnet.components import (
-    splice, splice_valid, affine_init, affine_apply, pnorm, normalize,
+    splice_valid, affine_init, affine_apply, pnorm, normalize,
     ACTIVATIONS,
 )
 
@@ -73,25 +73,35 @@ class Tdnn:
                                       param_stddev=0.0, bias_stddev=0.0)
         return params
 
-    def context_of(self, num_layers: int) -> tuple[int, int]:
+    def context_of(self, num_layers: int | None) -> tuple[int, int]:
         """(left, right) context of the first `num_layers` layers."""
         sp = self.config.splice_indexes[:num_layers]
         lc = -sum(min(c) for c in sp if min(c) < 0)
         rc = sum(max(c) for c in sp if max(c) > 0)
         return lc, rc
 
+    def edge_pad(self, feats, num_layers: int | None = None):
+        """Replicate the first/last frames of feats [..., T, D] by the
+        (left, right) context of the first `num_layers` layers."""
+        lc, rc = self.context_of(num_layers)
+        pads = [(0, 0)] * (feats.ndim - 2) + [(lc, rc), (0, 0)]
+        return jnp.pad(jnp.asarray(feats), pads, mode="edge")
+
     def apply(self, params, feats: jnp.ndarray, pad_context: bool = True,
               compute_dtype=None, num_layers: int | None = None):
         """feats [..., T, D] -> log posteriors [..., T(out), num_pdfs].
 
-        pad_context=True clamps at utterance edges (decode mode, output T
-        == input T); False uses valid frames only (training on chunks that
-        already carry their context).
+        pad_context=True replicates the first and last input frames by
+        the model's left/right context (decode mode, output T == input
+        T), as the reference pads nnet input at utterance edges; the
+        streaming decoders clamp their feature ring the same way, so
+        streamed and offline scores agree frame for frame. False uses
+        valid frames only (training on chunks that already carry their
+        context).
 
-        compute_dtype=jnp.bfloat16 runs the affine GEMMs in bf16 on the
-        MXU (2x f32 throughput; accumulation stays f32 on TPU) — the
-        inference fast path. Nonlinearities and the final log-softmax
-        stay f32.
+        compute_dtype=jnp.bfloat16 runs the affine GEMMs with bf16
+        operands and f32 accumulation — the inference fast path.
+        Nonlinearities and the final log-softmax stay f32.
 
         num_layers runs only the first k hidden layers before the final
         affine (layer-wise discriminative pretraining, ref:
@@ -99,22 +109,18 @@ class Tdnn:
         valid for pnorm/relu nets whose hidden output dim is constant).
         """
         cfg = self.config
-        x = feats
-        sp = splice if pad_context else splice_valid
+        x = self.edge_pad(feats, num_layers) if pad_context else feats
         cast = ((lambda a: a.astype(compute_dtype))
                 if compute_dtype is not None else (lambda a: a))
         if compute_dtype is not None:
-            # bf16 fast path (training AND batched inference): the step
-            # is HBM-bound at these dims, not MXU-bound, so the splice
+            # bf16 fast path (training AND batched inference): the splice
             # is folded into the GEMM as a sum of per-offset slabs —
-            # x@W == sum_k slice_k(x) @ W[kD:(k+1)D] — and the
-            # [.., T, D*n] concat buffer never materializes. Activations
-            # stay f32 through the nonlinearity/normalize: an all-bf16
-            # activation variant measured slightly faster (63.9% vs
-            # ~60% MFU) but quantizing the hidden representation moved
-            # calibrated-corpus WER by >10 points — not a rounding-level
-            # change, so it is not shipped. Measured on v5e at the bench
-            # shapes: 48.7% -> ~60% bf16 MFU for the full train step
+            # x@W == sum_k slice_k(x) @ W[kD:(k+1)D] — so the
+            # [.., T, D*n] concat buffer never materializes (the layer is
+            # expected to be memory-bound at these widths). Activations
+            # stay f32 through the nonlinearity/normalize: quantizing the
+            # hidden representation to bf16 moved calibrated-corpus WER
+            # by >10 points, which is not a rounding-level change
             # (WER-level parity with f32 asserted in
             # tests/test_bf16_parity.py).
             for ctx, layer in zip(cfg.splice_indexes[:num_layers],
@@ -123,18 +129,10 @@ class Tdnn:
                 xc = cast(x)
                 lo, hi = min(ctx), max(ctx)
                 D = xc.shape[-1]
-                if pad_context:
-                    # edge-clamped splice == edge-replicated pad + slices
-                    T = xc.shape[-2]
-                    pads = [(0, 0)] * (xc.ndim - 2) + [(-lo, hi), (0, 0)]
-                    xp = jnp.pad(xc, pads, mode="edge")
-                    Tout = T
-                else:
-                    xp = xc
-                    Tout = xc.shape[-2] - (hi - lo)
+                Tout = xc.shape[-2] - (hi - lo)
                 acc = None
                 for k, off in enumerate(ctx):
-                    xs = jax.lax.slice_in_dim(xp, off - lo,
+                    xs = jax.lax.slice_in_dim(xc, off - lo,
                                               off - lo + Tout, axis=-2)
                     part = jnp.matmul(xs, w[k * D:(k + 1) * D])
                     acc = part if acc is None else acc + part
@@ -151,7 +149,7 @@ class Tdnn:
             return jax.nn.log_softmax(logits, axis=-1)
         for ctx, layer in zip(cfg.splice_indexes[:num_layers],
                               params["layers"][:num_layers]):
-            x = sp(x, ctx)
+            x = splice_valid(x, ctx)
             x = jnp.matmul(x, layer["w"]).astype(jnp.float32) \
                 + layer["b"]
             if cfg.nonlinearity == "pnorm":
@@ -166,10 +164,9 @@ class Tdnn:
 
     def apply_logits(self, params, feats, pad_context: bool = True):
         cfg = self.config
-        x = feats
-        sp = splice if pad_context else splice_valid
+        x = self.edge_pad(feats) if pad_context else feats
         for ctx, layer in zip(cfg.splice_indexes, params["layers"]):
-            x = sp(x, ctx)
+            x = splice_valid(x, ctx)
             x = affine_apply(layer, x)
             if cfg.nonlinearity == "pnorm":
                 x = pnorm(x, cfg.pnorm_output_dim)
@@ -184,11 +181,10 @@ class Tdnn:
         nnet-am-fix thresholds; ref: nnet2/nnet-fix.h FixNnet). -> list of
         [hidden_dim] arrays, one per hidden layer."""
         cfg = self.config
-        x = feats
-        sp = splice if pad_context else splice_valid
+        x = self.edge_pad(feats) if pad_context else feats
         stats = []
         for ctx, layer in zip(cfg.splice_indexes, params["layers"]):
-            x = sp(x, ctx)
+            x = splice_valid(x, ctx)
             x = affine_apply(layer, x)
             if cfg.nonlinearity == "pnorm":
                 act = jnp.abs(x)

@@ -6,7 +6,7 @@ preconditioning, sharded over a device mesh.
  averaging, nnet2/nnet-precondition-online.h:446 OnlinePreconditioner.
  Model averaging across jobs + NG-SGD is the reference's substitute for
  synchronous data parallelism; on the mesh we do the strictly-stronger
- thing: one global step with gradients psum'd over ICI, SURVEY.md §2.11.)
+ thing: one global step with gradients psum'd across devices, SURVEY.md §2.11.)
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def cross_entropy_loss(model: Tdnn, params, feats, targets, weights,
     """feats [B, T+ctx, D] (valid-mode), targets [B, T], weights [B, T].
 
     compute_dtype=jnp.bfloat16 runs the affine GEMMs (and their grads)
-    in bf16 on the MXU with f32 master params — 2x MXU throughput; loss
-    reduction and log-softmax stay f32."""
+    with bf16 operands and f32 master params; loss reduction and
+    log-softmax stay f32."""
     # only Tdnn.apply knows compute_dtype; other models (e.g. Nnet3
     # config nets) share this loss with their own apply signature
     kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
@@ -73,9 +73,9 @@ def make_train_step(model: Tdnn, optimizer, mesh=None, compute_dtype=None):
     """Returns jitted step(params, opt_state, feats, targets, weights).
 
     With a mesh: batch shards over 'data', final layer over 'model' — XLA
-    inserts the gradient all-reduce over ICI automatically.
+    inserts the gradient all-reduce automatically.
     compute_dtype=jnp.bfloat16 selects mixed-precision GEMMs (f32 master
-    params, bf16 matmuls on the MXU).
+    params, bf16 matmuls).
     """
 
     def step(params, opt_state, feats, targets, weights):

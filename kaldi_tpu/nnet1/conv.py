@@ -4,7 +4,7 @@
  patches of `patch_dim` filterbank bins with `patch_step` stride convolved
  by `num_filters` filters; nnet/nnet-max-pooling-component.h
  MaxPoolingComponent. Realized as XLA conv_general_dilated — directly
- MXU-tileable, unlike the reference's im2col GEMM.)
+ tensor-core-shaped, unlike the reference's im2col GEMM.)
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@
  Training = counting: accumulate per-state posterior sums from frame
  alignments, then normalize.)
 
-TPU-first: scoring all states for all frames is one [T, D] x [D, S]
+Accelerator-first: scoring all states for all frames is one [T, D] x [D, S]
 matmul of log-posteriors against the state distributions.
 """
 

@@ -12,8 +12,8 @@ frontier, backpointer arena) lives on the device across chunks. A 160 ms
 chunk therefore costs a single dispatch with ZERO device->host transfer;
 nothing crosses the link until traceback (partial or final), which runs
 on-device (reverse scan of gathers) and ships only the label sequence.
-This is what makes streaming viable over a high-latency host<->TPU link:
-per-chunk wall time is one round trip, not one per pipeline stage.
+Per-chunk wall time is one dispatch, not one round trip per pipeline
+stage.
 
 Two search engines plug into the same fused front-end:
   * CsrBeamDecoder (production): the degree-tiered expansion

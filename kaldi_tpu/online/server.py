@@ -5,7 +5,7 @@
  the server runs the online decoder and writes partial hypotheses as they
  change, then the final hypothesis when the client shuts down its writing
  side. One thread per connection (the reference forks a decode thread per
- stream); the TPU decode itself is the shared jitted program.)
+ stream); the device decode itself is the shared jitted program.)
 """
 
 from __future__ import annotations

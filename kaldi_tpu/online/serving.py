@@ -2,8 +2,8 @@
 
 (ref: the reference serves concurrent live streams with one decoder
  process per stream — online2bin/online2-tcp-nnet3-decode-faster.cc,
- onlinebin/online-server-gmm-decode-faster.cc. A TPU inverts that
- economics: the chip is fast and the dispatch round trip is the cost, so
+ onlinebin/online-server-gmm-decode-faster.cc. An accelerator inverts
+ that economics: the device is fast and the dispatch round trip is the cost, so
  the server advances ALL active streams in lockstep with ONE fused XLA
  program per chunk interval — framing, fbank, TDNN scoring and
  degree-tiered token passing batched over streams, per-stream state

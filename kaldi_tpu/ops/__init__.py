@@ -1,8 +1,8 @@
-"""Math & feature kernels: the TPU-native replacement for src/feat + src/matrix.
+"""Math & feature kernels: the tensor-program replacement for src/feat + src/matrix.
 
 Everything here operates on batched arrays (leading batch dim optional via
 vmap) with static shapes, jit-friendly control flow, and matmul-shaped inner
-loops so XLA can tile onto the MXU.
+loops so XLA can tile them into matmuls.
 """
 
 from kaldi_tpu.ops.window import (

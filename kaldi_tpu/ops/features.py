@@ -3,11 +3,11 @@
 Behavioral parity with the reference computers
 (ref: feat/feature-mfcc.cc:117-200 Mfcc::ComputeInternal,
  feat/feature-fbank.cc, feat/feature-plp.cc:160-260 Plp::ComputeInternal,
- feat/feature-spectrogram.cc), re-designed TPU-first:
+ feat/feature-spectrogram.cc), re-designed accelerator-first:
 
   * the whole utterance (or a batch of utterances) is framed with one gather,
   * FFT is one batched `jnp.fft.rfft` over a static power-of-two length,
-  * mel filterbank and DCT are dense matmuls (MXU),
+  * mel filterbank and DCT are dense matmuls,
   * everything is fused by XLA under `jit`; there is no per-frame loop.
 
 All compute is float32 (matching BaseFloat); inputs are int16-scale float
@@ -32,7 +32,7 @@ FLT_TINY = float(np.finfo(np.float32).tiny)
 
 # Feature matmuls (mel bank, DCT, IDFT) are tiny compared to AM scoring but
 # numerically load-bearing (they sit under a log); always run them in full
-# f32 on the MXU rather than the TPU default bf16 passthrough.
+# f32, never in a reduced-precision default (TF32 on the GPU).
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -1,9 +1,9 @@
-"""Mel filterbank as a dense [num_bins, num_fft_bins] matrix → one MXU matmul.
+"""Mel filterbank as a dense [num_bins, num_fft_bins] matrix → one matmul.
 
 Behavioral parity with the reference MelBanks (ref: feat/mel-computations.cc:33-140,
 VTLN warp :144-216), but instead of per-bin sparse ranges we materialize the
 whole (mostly-zero) bank matrix once on the host; applying it to a block of
-power spectra is then a single GEMM, which is the TPU-native formulation.
+power spectra is then a single GEMM, which is the tensor-program formulation.
 """
 
 from __future__ import annotations

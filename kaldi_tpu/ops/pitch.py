@@ -6,7 +6,7 @@
  outputs (NCCF/POV, pitch); ProcessPitch :407 turns that into the 3-dim
  (pov-feature, normalized-log-pitch, delta-pitch) feature.)
 
-TPU-first: NCCF for all frames and lags is one batched correlation
+Accelerator-first: NCCF for all frames and lags is one batched correlation
 (a matmul-shaped reduction); the Viterbi over lags is a `lax.scan` over
 frames with an [L, L] transition-cost matrix — dense DP like the aligner.
 """

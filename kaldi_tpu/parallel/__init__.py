@@ -1,4 +1,4 @@
-"""Mesh & sharding utilities — the TPU replacement for run.pl/queue.pl job
+"""Mesh & sharding utilities — the replacement for run.pl/queue.pl job
 arrays and filesystem reduces (SURVEY.md §2.11)."""
 
 from kaldi_tpu.parallel.mesh import make_mesh, data_parallel_sharding

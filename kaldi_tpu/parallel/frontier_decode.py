@@ -4,7 +4,7 @@ SURVEY.md §2.11's big-graph prescription: when one utterance's decode must
 scale past a chip (giant HCLG, low-latency single stream), the token
 frontier itself shards over devices — each device expands its K/D slice
 of the frontier through its (replicated) tier tables, candidate sets are
-exchanged with `all_gather` over ICI, and dedup+selection runs
+exchanged with `all_gather` across devices, and dedup+selection runs
 replicated so every device holds the identical next frontier. The
 reference's analogue is nothing: its decoder is single-threaded per
 utterance (decoder/lattice-faster-decoder.cc); utterance-level sharding
@@ -131,7 +131,8 @@ def _make_fs_decode(dec: CsrBeamDecoder, mesh: Mesh, axis: str,
                 base_sc = base_sc.at[a:b].set(hub_sc[h])
                 slot_flat = slot_flat.at[a:b].set(hub_slot[h])
             if t.hub_onehot is not None:
-                am_flat = t.hub_onehot @ (-ll_t[t.hub_gpdf])
+                am_flat = jnp.matmul(t.hub_onehot, -ll_t[t.hub_gpdf],
+                                     precision=jax.lax.Precision.HIGHEST)
             else:
                 am_flat = -ll_t[t.hub_pdf]
             sc_flat = base_sc + t.hub_cost + am_flat
@@ -143,7 +144,7 @@ def _make_fs_decode(dec: CsrBeamDecoder, mesh: Mesh, axis: str,
                           slot_flat[idx] | (rows[:, 4] << kbits),
                           rows[:, 3]))
         cl = [jnp.concatenate([c[i] for c in cands]) for i in range(4)]
-        # --- frontier exchange: ALL devices' candidates over ICI
+        # --- frontier exchange: ALL devices' candidates (all_gather)
         cl = [jax.lax.all_gather(x, axis, tiled=True) for x in cl]
         cst, csc, crec, cil = cl
         best = jnp.min(csc)

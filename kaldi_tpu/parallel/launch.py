@@ -1,24 +1,24 @@
-"""Multi-controller launch: the queue.pl / multi-host role, TPU-native.
+"""Multi-controller launch: the queue.pl / multi-host role.
 
 (ref: egs/wsj/s5/utils/queue.pl:15-58 and run.pl — the reference scales
-past one machine by qsub'ing independent jobs against NFS. The TPU-native
-replacement is one SPMD program over a global mesh: every host runs the
-SAME script, jax.distributed wires the controllers together, data loads
-host-sharded, and gradients/stats reduce over ICI/DCN collectives inside
+past one machine by qsub'ing independent jobs against NFS. The
+replacement here is one SPMD program over a global mesh: every host runs
+the SAME script, jax.distributed wires the controllers together, data
+loads host-sharded, and gradients/stats reduce over collectives inside
 jit — SURVEY.md §2.11.)
 
 Three pieces:
   - init_distributed(): the per-process entry — reads the coordinator
     contract from env (KALDI_TPU_COORDINATOR / NUM_PROCESSES /
     PROCESS_ID) or arguments, brings up jax.distributed (gloo collectives
-    on the CPU backend so the path is testable without N TPU hosts).
+    on the CPU backend so the path is testable without N GPU hosts).
   - host_shard(): deterministic utterance sharding per process — the
     host-sharded data loading the reference gets from split_scp.pl.
   - launch_local(): spawns N local processes of a worker script with the
-    env contract set, waits, and writes run.pl-style accounting logs.
-    On a real pod each host runs the worker under its own scheduler with
-    the same env contract; this launcher makes the contract executable
-    (and testable) on one machine.
+    env contract set, one GPU per worker, waits, and writes run.pl-style
+    accounting logs. On a cluster each host runs the worker under its own
+    scheduler with the same env contract; this launcher makes the
+    contract executable (and testable) on one machine.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def init_distributed(coordinator: str | None = None,
     Returns (process_id, num_processes). Safe to call with
     num_processes == 1 (no-op init). On the CPU backend the gloo
     collectives implementation is selected so cross-process collectives
-    work without TPU hardware (the CI/dryrun path)."""
+    work without accelerators (the CI/dryrun path)."""
     import jax
 
     coordinator = coordinator or os.environ.get(COORD_ENV)
@@ -89,13 +89,35 @@ def host_shard(keys, process_id: int | None = None,
     return ordered[pid::n]
 
 
+def worker_device_env(env: dict, i: int) -> dict:
+    """Environment overrides giving local worker i its own GPU.
+
+    A JAX process reserves most of every card it opens, so N workers on
+    one host each see only card i (the i-th entry of an inherited
+    CUDA_VISIBLE_DEVICES, else card i). Workers pinned to the CPU backend
+    (JAX_PLATFORMS without cuda/gpu) keep the environment as it is."""
+    plats = {p.strip() for p in env.get("JAX_PLATFORMS", "").split(",")
+             if p.strip()}
+    if plats and not plats & {"cuda", "gpu"}:
+        return {}
+    visible = [c for c in env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if c.strip()]
+    if not visible:
+        return {"CUDA_VISIBLE_DEVICES": str(i)}
+    if i >= len(visible):
+        raise ValueError(f"worker {i} has no card: CUDA_VISIBLE_DEVICES="
+                         f"{env['CUDA_VISIBLE_DEVICES']}")
+    return {"CUDA_VISIBLE_DEVICES": visible[i].strip()}
+
+
 def launch_local(worker: list[str], num_processes: int,
                  log_dir: str, coordinator_port: int = 29411,
                  env: dict | None = None, timeout: float = 600.0,
                  max_gang_restarts: int = 0):
     """Run `worker` (argv list) as num_processes local processes with the
-    distributed env contract; -> list of return codes. Writes
-    run.pl-style accounting to <log_dir>/worker.<pid>.log.
+    distributed env contract, one GPU each (worker_device_env); -> list
+    of return codes. Writes run.pl-style accounting to
+    <log_dir>/worker.<pid>.log.
 
     max_gang_restarts: SPMD preemption recovery — an N-process jit
     program is all-or-nothing (one dead controller hangs the
@@ -118,6 +140,7 @@ def launch_local(worker: list[str], num_processes: int,
         for i in range(num_processes):
             e = dict(base_env)
             e[PID_ENV] = str(i)
+            e.update(worker_device_env(base_env, i))
             log = open(os.path.join(log_dir, f"worker.{i}.log"), mode)
             log.write(f"# Running on {os.uname().nodename}"
                       + (f" (gang restart {attempt})" if attempt else "")

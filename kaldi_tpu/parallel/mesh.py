@@ -2,7 +2,7 @@
 
 Replaces the reference's distributed backend (NFS + qsub job arrays,
 SURVEY.md §2.11): gradients and sufficient statistics reduce with psum over
-ICI inside one jit program; model-parallel shardings cover the case where
+collectives inside one jit program; model-parallel shardings cover the case where
 the output (pdf) layer exceeds one chip.
 """
 
@@ -52,7 +52,7 @@ def batch_sharding(mesh: Mesh, ndim: int):
 
 def decode_sharded(decoder, loglikes, num_frames, mesh: Mesh):
     """Batched decode with the utterance batch sharded over the mesh's
-    'data' axis — the TPU replacement for job-array decode sharding
+    'data' axis — the replacement for job-array decode sharding
     (`$cmd JOB=1:N gmm-latgen-faster`, SURVEY.md §2.11: utterance-level
     shell parallelism becomes a sharded batch dim; GSPMD partitions the
     whole decode program, graph tables replicated, frontier sharded).

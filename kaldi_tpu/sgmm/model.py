@@ -12,7 +12,7 @@
 
  All per-frame work is batched einsums over the gselect'd Gaussians: the
  reference's per-frame caches (:142,165,199) become precomputed tensors
- (H_i, normalizers) contracted on the MXU.
+ (H_i, normalizers) contracted as GEMMs.
 
  The sgmm2-specific speaker-dependent weight projection u_i (:431) is not
  yet implemented (spk weights are substate-independent), noted for a later

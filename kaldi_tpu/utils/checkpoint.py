@@ -1,7 +1,7 @@
 """Checkpoint/resume: atomic versioned pytree checkpoints.
 
 (ref: SURVEY.md §5 — the reference checkpoints by writing $dir/$x.mdl every
- outer iteration and resumes via --stage flags; the TPU equivalent is
+ outer iteration and resumes via --stage flags; the equivalent here is
  checkpoint-every-N-steps with atomic writes (write-temp + rename) and
  latest-step discovery. Arrays are stored as npz; the pytree structure as
  JSON-encoded paths, so checkpoints are inspectable without the model code.)

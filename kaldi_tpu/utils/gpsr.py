@@ -5,7 +5,7 @@
  Figueiredo/Nowak/Wright GPSR-BB algorithm on the split-variable
  nonnegative QP. Same algorithm here, vectorized with numpy — problem
  sizes are tiny (phonetic-subspace dims), so host numpy is the right
- altitude; the surrounding EM runs on TPU.)
+ altitude; the surrounding EM runs on the device.)
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ NaN/Inf guards, xprof trace capture.
 (ref: SURVEY.md §5 — base/timer.h:31 Timer; the CUDA layer's
  CuDevice::AccuProfile/PrintProfile cumulative per-op seconds
  (cudamatrix/cu-device.cc:376-400); decode binaries log per-utterance
- likelihood-per-frame and RTF. TPU equivalents: the same host-side
+ likelihood-per-frame and RTF. Equivalents here: the same host-side
  counters + jax.profiler traces for device-side timelines.)
 """
 

@@ -4,7 +4,7 @@
 //  stream format base/io-funcs.h — "key ␣ \0B FM <int32 rows> <int32 cols>
 //  <float data>". The reference's data-loader path is C++; this library is
 //  the equivalent native runtime component: zero-copy scanning of feature
-//  archives feeding the TPU host pipeline, exposed to Python via ctypes.
+//  archives feeding the host pipeline, exposed to Python via ctypes.
 //  Supports FM (float32) and DM (float64, converted to float32) matrices
 //  and FV/DV vectors; the CM compressed format is decoded host-side in
 //  Python where it is not on the hot path.)

@@ -2,7 +2,7 @@
 //
 // (ref: decoder/lattice-faster-decoder.cc:109 GetRawLattice — the
 //  reference reconstructs the lattice from Tokens + ForwardLinks in C++
-//  inside the decoder; here the TPU decoder records per-round frontier
+//  inside the decoder; here the device decoder records per-round frontier
 //  snapshots (state, score) and this kernel re-expands each round's
 //  predecessors through the CSR arc tables, keeping links within
 //  lattice-beam of the destination token — the PruneForwardLinks

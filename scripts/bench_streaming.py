@@ -18,7 +18,8 @@ Two paths are measured:
   * generic: SingleUtteranceNnet2Decoder — the flexible host-driven
     pipeline (i-vectors, CMVN, endpointing) with per-stage device calls.
 
-Writes STREAMING.json. Run alone on the chip (TPU processes serialize).
+Prints one JSON line. Run it alone on the GPU: a second JAX process on
+the same card would compete for its memory and its time.
 """
 
 import json
@@ -34,9 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from kaldi_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from kaldi_tpu.ops import FbankOpts, FrameOpts, MelOpts, fbank
     from kaldi_tpu.nnet.tdnn import Tdnn, TdnnConfig
     from kaldi_tpu.nnet.am_nnet import AmNnet
@@ -288,9 +288,6 @@ def main():
         "graph_states": graph.num_states,
         "graph_arcs": graph.num_arcs,
     }
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "STREAMING.json"), "w") as f:
-        json.dump(out, f, indent=1)
     print(json.dumps(out))
 
 

@@ -9,9 +9,10 @@ tied-triphone tree, the production configuration; --mono for the
 monophone variant) -> Ha∘CLG -> det* -> min -> rm-disambig ->
 self-loops -> pack -> CSR decode at beam=13/max_active=7000.
 
-Usage: python scripts/mkgraph_scale.py [vocab] [out.json] [--mono]
-Stage 1 (CPU): build + pack, save arrays to /tmp/mkgraph_scale.npz
-Stage 2 (TPU): decode the packed graph at headline settings.
+Usage: python scripts/mkgraph_scale.py [vocab] [out.json] [--mono] [--cache]
+Stage 1 (host CPU): build + pack, save arrays to .cache/mkgraph_scale.npz
+Stage 2 (GPU): decode the packed graph at headline settings.
+--cache publishes the graph as .cache/selfbuilt_hclg.npz for bench.py.
 """
 
 import json
@@ -21,11 +22,14 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+CACHE_DIR = os.path.join(REPO, ".cache")
+GRAPH_NPZ = os.path.join(CACHE_DIR, "mkgraph_scale.npz")
 
 
 def build(vocab=60000, n_bigrams=2_000_000, n_trigrams=1_000_000,
-          context="tri", out_npz="/tmp/mkgraph_scale.npz"):
+          context="tri", out_npz=GRAPH_NPZ):
     from kaldi_tpu.fst.lang import Lexicon, prepare_lang
     from kaldi_tpu.lm.arpa import arpa_to_g
     from kaldi_tpu.lm.synth import synth_lexicon_text, synth_trigram_arpa
@@ -68,6 +72,7 @@ def build(vocab=60000, n_bigrams=2_000_000, n_trigrams=1_000_000,
     stats["mkgraph_s"] = round(time.time() - t0, 1)
     stats["total_build_s"] = round(time.time() - t_all, 1)
     packed = pack_graph_flat(hclg, tm.id2pdf_array)
+    os.makedirs(os.path.dirname(os.path.abspath(out_npz)), exist_ok=True)
     np.savez(out_npz,
              arc_start=packed.arc_start, ilabel=packed.ilabel,
              olabel=packed.olabel, cost=packed.cost,
@@ -78,14 +83,12 @@ def build(vocab=60000, n_bigrams=2_000_000, n_trigrams=1_000_000,
 
 
 def decode(stats):
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from kaldi_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from kaldi_tpu.decoder.graph_pack import PackedGraph
     from kaldi_tpu.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
 
-    z = np.load("/tmp/mkgraph_scale.npz")
+    z = np.load(GRAPH_NPZ)
     packed = PackedGraph(
         arc_start=z["arc_start"], ilabel=z["ilabel"], olabel=z["olabel"],
         cost=z["cost"], nextstate=z["nextstate"], final=z["final"],
@@ -118,17 +121,15 @@ if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     context = "mono" if "--mono" in sys.argv else "tri"
     vocab = int(args[0]) if args else 60000
-    out = args[1] if len(args) > 1 else "MKGRAPH_SCALE.json"
+    out = args[1] if len(args) > 1 else os.path.join(CACHE_DIR,
+                                                     "mkgraph_scale.json")
     stats = build(vocab, context=context)
     print(json.dumps(stats), flush=True)
     if "--cache" in sys.argv:
         # publish for bench.py's selfbuilt_graph line
         import shutil
-        cdir = os.path.expanduser("~/.cache/kaldi_tpu")
-        os.makedirs(cdir, exist_ok=True)
-        shutil.copy("/tmp/mkgraph_scale.npz",
-                    os.path.join(cdir, "selfbuilt_hclg.npz"))
-        with open(os.path.join(cdir, "selfbuilt_hclg.stats.json"),
+        shutil.copy(GRAPH_NPZ, os.path.join(CACHE_DIR, "selfbuilt_hclg.npz"))
+        with open(os.path.join(CACHE_DIR, "selfbuilt_hclg.stats.json"),
                   "w") as f:
             json.dump(stats, f)
     stats = decode(stats)

@@ -2,7 +2,7 @@
 
 (round-2 verdict weak #5: frame-level argmax agreement is too loose a
 parity bar — 5% argmax flips can move WER materially. The contract is:
-bf16 GEMMs on the MXU change ZERO decoded words on the e2e recipe.)
+bf16 GEMMs change ZERO decoded words on the e2e recipe.)
 """
 
 import numpy as np

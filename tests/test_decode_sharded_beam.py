@@ -2,7 +2,7 @@
 (shard_map + all_gather) must equal single-device decoding exactly.
 
 (ref: SURVEY.md §2.11 — job-array decode parallelism becomes a sharded
-batch dim; the frontier exchange for giant graphs uses ICI collectives.)
+batch dim; the frontier exchange for giant graphs uses all_gather collectives.)
 """
 
 import numpy as np
@@ -139,7 +139,7 @@ def test_frontier_sharded_large_frontier_matches_single(graph):
     n_cands = 2 * K + 3 * CBR * D + (K if dec.tabs.hub_rows.shape[0] > 1
                                      else 0)
     gather_mb_per_frame = 4 * n_cands * 4 / 1e6
-    # a 1.05M-state graph decode ships ~1 MB/frame over ICI — far below
-    # the ~45 GB/s/link v5e budget at 100 frames/s; assert the
-    # accounting stays in that regime so regressions surface
+    # a 1.05M-state graph decode ships ~1 MB/frame between devices;
+    # assert the accounting stays in that regime so regressions
+    # surface
     assert gather_mb_per_frame < 4.0, gather_mb_per_frame

@@ -196,3 +196,32 @@ def test_fused_near_capacity_utterance(setup):
     assert list(w) == list(off_w)
     assert list(t) == list(off_t)
     assert c == pytest.approx(off_c, rel=1e-4, abs=1e-2)
+
+
+def test_fused_loglikes_equal_offline_at_edges(setup):
+    """With a non-uniform model (init() zeroes the final affine, which
+    hides edge frames), the streamed per-frame scores equal offline
+    AM scoring on every frame, first and last lc/rc frames included."""
+    fb_opts, am, dec, _fused = setup
+    params = dict(am.params)
+    params["final"] = dict(params["final"])
+    params["final"]["w"] = jax.random.normal(
+        jax.random.PRNGKey(5), params["final"]["w"].shape)
+    am2 = AmNnet(am.model, params)
+    fused = FusedOnlineDecoder(am2, dec, fb_opts, chunk_samples=2560,
+                               t_max=256, keep_loglikes=True)
+    wave = (np.random.default_rng(13).standard_normal(14000)
+            .astype(np.float32) * 4000)
+    for pos in range(0, len(wave), 2560):
+        fused.accept_waveform(wave[pos: pos + 2560])
+    fused.input_finished()
+    n = fused.num_frames_decoded
+    ll_stream = np.asarray(fused._carry[-1][:n])
+    feats = np.asarray(fbank(jnp.asarray(wave), fb_opts))
+    ll_off = am2.loglikes_np(feats[None])[0]
+    assert ll_stream.shape == ll_off.shape
+    np.testing.assert_allclose(ll_stream, ll_off, rtol=1e-5, atol=1e-4)
+    got = fused.best_path()
+    off_w, off_t, off_c = _offline(am2, dec, wave, fb_opts)
+    assert list(got[0]) == list(off_w)
+    assert list(got[1]) == list(off_t)

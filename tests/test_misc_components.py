@@ -106,7 +106,7 @@ def test_train_epochs_small_corpus_pads_batch():
 
 
 def test_tdnn_bf16_inference_close_to_f32():
-    """bf16 MXU fast path: log-posteriors near f32, argmax agrees."""
+    """bf16 fast path: log-posteriors near f32, argmax agrees."""
     import jax
     import jax.numpy as jnp
     import numpy as np

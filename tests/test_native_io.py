@@ -119,3 +119,22 @@ def test_read_ark_mixed_entries_no_duplicates(tmp_path):
     assert [k for k, _v in items] == ["a", "b", "c"]
     np.testing.assert_allclose(items[0][1], m)
     np.testing.assert_allclose(items[2][1], m + 1.0)
+
+
+def test_native_rebuilds_when_source_is_newer(tmp_path, monkeypatch,
+                                              lib_ok):
+    """A library older than ark_io.cc is rebuilt from the source, as the
+    fst and lattice libraries are."""
+    import shutil
+    src = tmp_path / "ark_io.cc"
+    so = tmp_path / "libkaldi_tpu_ark.so"
+    shutil.copyfile(native._SRC, src)
+    so.write_bytes(b"stale")                    # not a loadable library
+    os.utime(so, (1_000_000, 1_000_000))
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_SO", str(so))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert native._load() is not None
+    assert so.stat().st_mtime > src.stat().st_mtime - 1
+    assert so.read_bytes()[:4] == b"\x7fELF"

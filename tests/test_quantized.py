@@ -1,7 +1,6 @@
-"""Int8-quantized affine serving path (Pallas kernel + XLA fallback).
+"""Int8-quantized affine serving path (XLA dequant-matmul).
 
-(ref: the Pallas guide's quantization pattern; correctness oracle = the
- float path, tolerance set by int8 resolution.)
+(correctness oracle = the float path, tolerance set by int8 resolution.)
 """
 
 import numpy as np
@@ -34,23 +33,23 @@ def test_qaffine_xla_matches_float():
     x = rng.randn(M, K).astype(np.float32)
     wq, sc = quantize_weights(w)
     y_float = x @ w.T + b
-    y_q = np.asarray(qaffine(jnp.asarray(x), wq, sc, b, force_xla=True))
+    y_q = np.asarray(qaffine(jnp.asarray(x), wq, sc, b))
     rel = np.abs(y_q - y_float).max() / (np.abs(y_float).max() + 1e-6)
     assert rel < 0.02
 
 
-def test_qaffine_pallas_interpret_matches_xla():
-    """The Pallas kernel (interpret mode off-TPU) must equal the XLA
-    dequant matmul."""
+def test_qaffine_keeps_leading_dims():
+    """[..., K] inputs map to [..., N] exactly like the flattened call."""
     rng = np.random.RandomState(2)
-    K, N, M = 128, 128, 40     # aligned sizes for the TPU tiling rules
+    K, N = 24, 40
     w = rng.randn(N, K).astype(np.float32)
     b = rng.randn(N).astype(np.float32)
-    x = rng.randn(M, K).astype(np.float32)
+    x = rng.randn(2, 5, K).astype(np.float32)
     wq, sc = quantize_weights(w)
-    y_xla = np.asarray(qaffine(jnp.asarray(x), wq, sc, b, force_xla=True))
-    y_pl = np.asarray(qaffine(jnp.asarray(x), wq, sc, b, interpret=True))
-    np.testing.assert_allclose(y_pl, y_xla, atol=1e-4)
+    y3 = np.asarray(qaffine(jnp.asarray(x), wq, sc, b))
+    y2 = np.asarray(qaffine(jnp.asarray(x.reshape(10, K)), wq, sc, b))
+    assert y3.shape == (2, 5, N)
+    np.testing.assert_array_equal(y3.reshape(10, N), y2)
 
 
 def test_quantized_tdnn_close_to_float():
@@ -66,9 +65,28 @@ def test_quantized_tdnn_close_to_float():
     qp = quantize_tdnn(params)
     x = jnp.asarray(rng.randn(2, 20, 8), jnp.float32)
     y_f = np.asarray(model.apply(params, x, pad_context=True))
-    y_q = np.asarray(tdnn_apply_quantized(model, qp, x, pad_context=True,
-                                          force_xla=True))
+    y_q = np.asarray(tdnn_apply_quantized(model, qp, x, pad_context=True))
     # posteriors must agree closely; argmax should rarely differ
     assert np.abs(y_q - y_f).mean() < 0.02
     agree = (y_q.argmax(-1) == y_f.argmax(-1)).mean()
     assert agree > 0.95
+
+
+def test_quantized_tdnn_pads_input_edges_like_float():
+    """pad_context=True is valid-mode over the edge-padded input, the
+    same edge rule as Tdnn.apply."""
+    rng = np.random.RandomState(4)
+    cfg = TdnnConfig(feat_dim=8, num_pdfs=16, hidden_dim=32,
+                     pnorm_output_dim=8, nonlinearity="relu",
+                     splice_indexes=((-2, 0, 1), (-1, 2), (0,)))
+    model = Tdnn(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    params["final"]["w"] = 0.1 * jax.random.normal(
+        jax.random.PRNGKey(1), params["final"]["w"].shape)
+    qp = quantize_tdnn(params)
+    x = jnp.asarray(rng.randn(1, 12, 8), jnp.float32)
+    y_pad = np.asarray(tdnn_apply_quantized(model, qp, x, pad_context=True))
+    y_valid = np.asarray(tdnn_apply_quantized(model, qp, model.edge_pad(x),
+                                              pad_context=False))
+    assert y_pad.shape == (1, 12, 16)
+    np.testing.assert_array_equal(y_pad, y_valid)
